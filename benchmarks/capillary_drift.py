@@ -23,7 +23,7 @@ MODE-DEPENDENT (+1.2%..+3.5% per 1.1% mass at m=2..8, -5.5% at m=1),
 the measured per-mode values all lie between the t=0-base and
 window-mean-drift predictions with the fast modes ON the drifted curve
 (m8: 0.03 sigma), and the drift-adjusted prediction reproduces the real
-nonlinear f32 TPU run at 8x64x64 to 0.2-0.9% on all six channels.
+nonlinear f32 accelerator run at 8x64x64 to 0.2-0.9% on all six channels.
 """
 import argparse
 import json

@@ -1,14 +1,13 @@
-"""bflbm_tpu — TPU-native fluctuating binary-fluid lattice-Boltzmann framework.
+"""bflbm_tpu - fluctuating binary-fluid lattice-Boltzmann framework in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
-MDProject/Binary-Fluctuating-Lattice-Boltzmann (AMReX + CUDA/MPI), designed
-TPU-first: populations live as (19, X, Y, Z) arrays sharded over a
-``jax.sharding.Mesh``, the collide-stream loop is one fused jitted step
-(with a Pallas kernel on the hot path), thermal noise is counter-based and
-decomposition-invariant, and the on-device spectral analysis (structure
-factors) uses gather-free split-re/im matmul DFTs (``ops.rfft``; this TPU
-backend has no complex dtypes, so there is no ``jnp.fft`` on the device
-path — offline analysis on host uses ``numpy.fft``).
+A JAX/XLA/Pallas rebuild of the capabilities of
+MDProject/Binary-Fluctuating-Lattice-Boltzmann (AMReX + CUDA/MPI):
+populations live as (19, X, Y, Z) arrays sharded over a
+``jax.sharding.Mesh``, the collide-stream loop is one jitted step (a
+Pallas/Triton kernel for the GPU, the plain jnp step as reference),
+thermal noise is counter-based and decomposition-invariant, and the
+on-device structure factors use gather-free split-re/im matmul DFTs
+(``ops.rfft``; offline analysis on the host uses ``numpy.fft``).
 """
 
 from . import config, lattice, state  # noqa: F401

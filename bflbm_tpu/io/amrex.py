@@ -4,7 +4,7 @@ The reference stores every frame, checkpoint and analysis artifact as
 AMReX plotfiles (``WriteSingleLevelPlotfile``) and raw VisMF MultiFabs,
 and its offline notebooks re-load them through ``VisMF::Read``
 (``AMReX_FileIO.H:18-113``: LoadSingleMultiFab / LoadSlicedMultiFab /
-LoadSetOfMultiFabs).  This module gives the TPU framework direct access
+LoadSetOfMultiFabs).  This module gives the framework direct access
 to that on-disk format, so existing reference output can be re-analyzed
 with `bflbm_tpu.analysis` without conversion — and our own frames can
 be exported for AMReX-side tooling (amrvis/yt/paraview).

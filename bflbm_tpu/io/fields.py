@@ -33,7 +33,7 @@ def write_frame(out_dir: str, step: int, packed_hydro,
     large frames — np.savez_compressed is prohibitively slow at 256^3).
     writer: optional io.native.AsyncFieldWriter — large frames are
     snapshotted (memcpy at submit) and written by its background
-    threads so the step loop never blocks on disk (the TPU analog of
+    threads so the step loop never blocks on disk (the analog of
     AMReX's async VisMF plotfile path)."""
     os.makedirs(out_dir, exist_ok=True)
     arr = np.asarray(packed_hydro)

@@ -1,1 +1,1 @@
-from . import fused_step  # noqa: F401
+"""Hand-written device kernels (Pallas through Triton for the GPU)."""

@@ -1,4 +1,4 @@
-"""D3Q19 lattice model for the fluctuating binary LBM (TPU-native rebuild).
+"""D3Q19 lattice model for the fluctuating binary LBM.
 
 The reference implementation (``LBM_d3q19.H``) hard-codes the moment
 transform (``moments()``, ``LBM_d3q19.H:100-156``) and its inverse
@@ -15,8 +15,8 @@ from the discrete orthogonality relation
 
 This reproduces the reference transforms exactly (the mode norms ``b_k``
 match the table at ``LBM_d3q19.H:56-76``; validated in
-``tests/test_lattice.py``) while mapping onto the TPU MXU as a pair of
-19x19 matmuls over the population axis.
+``tests/test_lattice.py``) as a pair of 19x19 matrices applied over the
+population axis.
 
 Velocity ordering follows the reference (``LBM_d3q19.H:12-32``):
 rest; +-x, +-y, +-z faces; xy, yz, xz edge diagonals.  Keeping the same

@@ -46,16 +46,15 @@ def prelude(state: SimState, params: LBMParams, ref_state=None, *,
     reference's USE_REF_STATE noise path — amplitudes evaluated at the
     stored equilibrium state translated into the instantaneous
     center-of-mass frame (LBM_binary.H:92-106 + update_com per step).
-    com_ref=None marks the fields as PRE-ROLLED (the kernel engines
-    roll once per chunk): they are used as-is with zero shift.
 
     noise_source: "threefry" (bulk counter-based draw, default) or
-    "hash" — the per-cell coordinate-keyed stream (the reference's
+    "hash" - the per-cell coordinate-keyed stream (the reference's
     RANDRAW ``draw_from_pdf_normal`` analog, LBM_binary.H:42-63).  The
-    hash word is derived from the key split exactly as the fused kernel
-    does, so a "hash" jnp trajectory consumes bitwise the same noise as
-    a ``noise_impl="hash"`` kernel trajectory.  noise_dist: "clt4"/"bm"
-    normal generator for the hash stream.
+    hash word is derived from the key split exactly as the GPU step
+    kernel does (:func:`ops.noise.hash_word`), so a "hash" jnp trajectory
+    consumes bitwise the noise of a kernel-engine trajectory.
+    noise_dist: the hash stream's normal generator
+    ("clt4"/"clt2"/"u8"/"bm").
     """
     hbar = hydro_ops.hydrovars_bar(state.f, state.g, params)
     key, sub = jax.random.split(state.key)
@@ -63,21 +62,14 @@ def prelude(state: SimState, params: LBMParams, ref_state=None, *,
         from ..observables import stats
 
         rho_eq, phi_eq, com_ref = ref_state
-        if com_ref is None:
-            noise_ref = (rho_eq, phi_eq, jnp.zeros(3, hbar.rho.dtype))
-        else:
-            com = stats.center_of_mass(hbar.rho)
-            noise_ref = (rho_eq, phi_eq, com - jnp.asarray(com_ref))
+        com = stats.center_of_mass(hbar.rho)
+        noise_ref = (rho_eq, phi_eq, com - jnp.asarray(com_ref))
     else:
         noise_ref = None
     if noise_source == "hash" and params.noise_on:
-        # identical word derivation to fused_stream_collide
-        word = jax.random.randint(
-            sub, (1,), minval=jnp.iinfo(jnp.int32).min,
-            maxval=jnp.iinfo(jnp.int32).max, dtype=jnp.int32)[0]
         xi_f, xi_g = noise_ops.thermal_noise_hash(
-            word, state.step, hbar.rho, hbar.phi, params, noise_ref,
-            noise_dist)
+            noise_ops.hash_word(sub), state.step, hbar.rho, hbar.phi,
+            params, noise_ref, noise_dist)
     else:
         xi_f, xi_g = noise_ops.thermal_noise(sub, hbar.rho, hbar.phi,
                                              params, noise_ref)

@@ -4,8 +4,7 @@ Replaces the FHDeX ``StructFact`` class + gather-to-rank-0 FFTW pipeline
 (usage main_run_job.cpp:299-311, 342-349; AMReX_DFT.H:19-132) with a
 running sum of DFT cross-spectra computed directly on the (sharded) field
 stack — no gather, trivially SPMD.  The DFT is the split re/im matmul
-transform of :mod:`bflbm_tpu.ops.rfft` (the TPU backend has no complex
-dtypes; see that module's docstring).
+transform of :mod:`bflbm_tpu.ops.rfft` (see that module's docstring).
 
 Conventions match the notebooks' recompute recipe (Debug.ipynb cells 5-8):
 unitary 1/sqrt(N) FFT normalization, optional k=0 zeroing (the reference's

@@ -6,9 +6,8 @@ shift with ``jnp.roll``; on a sharded mesh with explicit halo exchange
 extended by 2 halo cells along the sharded axes and all shifts become
 plain slices (with rolls only on unsharded, locally-periodic axes).
 
-Same stream-then-collide factorization as the Pallas kernel
-(:mod:`bflbm_tpu.kernels.fused_step`): blocks hold POST-COLLIDE
-populations; one call performs
+Blocks hold POST-COLLIDE populations (stream-then-collide
+factorization); one call performs
 
     pull-stream (interior)        <- consumes 1 halo cell
     densities on the 1-extended window  <- consumes the 2nd halo cell

@@ -74,7 +74,7 @@ def _safe_div(num, den, eps):
 def momentum(f: jnp.ndarray) -> jnp.ndarray:
     """j_d = sum_i f_i c_{i,d}; returns (3, X, Y, Z).
 
-    Precision.HIGHEST: avoid TPU bf16 operand truncation (see ops.moments).
+    Precision.HIGHEST: full float32, no TF32 (see ops.moments).
     """
     cmat = jnp.asarray(C.T, dtype=f.dtype)  # (3, 19)
     return jnp.tensordot(cmat, f, axes=([1], [0]),

@@ -1,17 +1,15 @@
 """3D DFT as separable real cos/sin matmuls (split re/im).
 
 Replaces the reference's gather-to-one-rank FFTW/cuFFT pipeline
-(``amrex_fftw_r2c_3d``, AMReX_DFT.H:19-132).  Rationale for not using
-``jnp.fft``: the TPU backend in this environment exposes no complex
-dtypes, and even where it does, a matmul DFT maps straight onto the MXU
-and shards trivially (each axis contraction is local after an all-to-all
-that XLA inserts as needed).  Cost is O(N^4) per axis vs O(N^3 log N) —
-at the structure-factor cadence (every ~100 steps) this is negligible
-next to the step loop, and for N <= 512 the MXU turns the extra flops
-into bandwidth-bound time anyway.
+(``amrex_fftw_r2c_3d``, AMReX_DFT.H:19-132) with real matmuls that
+shard trivially (each axis contraction is local after an all-to-all that
+XLA inserts as needed).  Cost is O(N^4) per axis vs O(N^3 log N) for an
+FFT; at the structure-factor cadence (every ~100 steps) it is a small
+share of a run, and ``jnp.fft`` (cuFFT on the GPU) is the candidate
+replacement (ROADMAP.md).
 
 All transforms keep (re, im) as separate real arrays and run at
-Precision.HIGHEST (bf16 operand truncation would swamp kBT~1e-5
+Precision.HIGHEST (TF32 operand truncation would swamp kBT~1e-5
 fluctuation spectra).
 """
 

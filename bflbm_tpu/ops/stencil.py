@@ -2,9 +2,10 @@
 
 Reference: ``LBM_binary.H:134-194``.  The reference evaluates these as
 per-cell neighbor loops over ghost cells filled by ``FillBoundary``; here
-they are compositions of periodic ``jnp.roll`` shifts, which XLA lowers to
-lane rotations on a single device and to collective permutes across a
-sharded mesh — no explicit halo plumbing needed on the jnp path.
+they are compositions of periodic ``jnp.roll`` shifts, which XLA fuses
+into shifted reads on a single device and lowers to collective permutes
+across a sharded mesh - no explicit halo plumbing needed on the jnp
+path.
 
 All stencils optionally pass the field through the Shan-Chen
 pseudopotential psi(n) = n0 (1 - exp(-n/n0)) first (``use_sc_pseudo``,

@@ -1,10 +1,13 @@
 """Streaming step as periodic pull shifts.
 
 Reference: push-scheme scatter ``stream_push`` (LBM_binary.H:519-531),
-which writes f(x) into fNew(x + c_i).  A scatter is hostile to TPU/XLA;
-the pull formulation fNew_i(x) = f_i(x - c_i) is identical (both say the
-post-stream population at site y in direction i is the pre-stream
-population at y - c_i) and lowers to lane rotations / collective permutes.
+which writes f(x) into fNew(x + c_i).  In XLA a scatter is the slow
+form; the pull formulation fNew_i(x) = f_i(x - c_i) is identical (both
+say the post-stream population at site y in direction i is the
+pre-stream population at y - c_i) and lowers to fused shifted copies on
+one device and to collective permutes across a sharded mesh.  (The GPU
+step kernel, kernels/triton_step.py, pushes: there each target is one
+store.)
 """
 
 from __future__ import annotations

@@ -26,49 +26,26 @@ from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import LBMParams
-from ..ops import blocked, collide as collide_ops, stream as stream_ops
+from ..ops import blocked, collide as collide_ops, noise as noise_ops
+from ..ops import stream as stream_ops
 from ..models import binary_fluid as model
 from ..state import SimState
 from . import mesh as mesh_lib
 
-_N_NORMALS = 33
 HALO = 2
 
 
 def exchange_halo(local: jnp.ndarray, axis_name: str, ax: int,
-                  halo: int = HALO, pad_to: int = None) -> jnp.ndarray:
+                  halo: int = HALO) -> jnp.ndarray:
     """Append `halo`-deep neighbor slabs along local axis `ax` using two
-    ppermute rounds over mesh axis `axis_name` (periodic ring).
-
-    pad_to: total appended slab depth (>= halo).  Only `halo` rows ride
-    the exchange; the remaining `pad_to - halo` rows — the FAR rows of
-    each slab, which exist purely so Mosaic's 8-aligned sublane DMA
-    fragments line up (fused_step._PY) and are never consumed by any
-    stencil — are zero-filled locally instead of shipped.  For the
-    kernel sweep's y halo this cuts the y ICI volume from _PY=8 rows to
-    the sd*T actually consumed (4x for the uncoupled block=2 case)."""
-    pad = 0 if pad_to is None else pad_to - halo
-    assert pad >= 0, (halo, pad_to)
-
-    def fill(slab, near_first):
-        if not pad:
-            return slab
-        shp = list(slab.shape)
-        shp[ax] = pad
-        z = jnp.zeros(shp, slab.dtype)
-        # consumed rows sit adjacent to the local block: zeros go on
-        # the far side (slab start for the left halo, end for the right)
-        return (jnp.concatenate([slab, z], axis=ax) if near_first
-                else jnp.concatenate([z, slab], axis=ax))
-
+    ppermute rounds over mesh axis `axis_name` (periodic ring)."""
     n = jax.lax.psum(1, axis_name)
     if n == 1:
         # neighbor is self: periodic wrap locally
         left = jax.lax.slice_in_dim(local, local.shape[ax] - halo,
                                     local.shape[ax], axis=ax)
         right = jax.lax.slice_in_dim(local, 0, halo, axis=ax)
-        return jnp.concatenate([fill(left, False), local,
-                                fill(right, True)], axis=ax)
+        return jnp.concatenate([left, local, right], axis=ax)
     fwd = [(i, (i + 1) % n) for i in range(n)]
     bwd = [(i, (i - 1) % n) for i in range(n)]
     # my left halo = right edge of left neighbor (data moves +1)
@@ -77,15 +54,15 @@ def exchange_halo(local: jnp.ndarray, axis_name: str, ax: int,
     left_halo = jax.lax.ppermute(right_edge, axis_name, fwd)
     left_edge = jax.lax.slice_in_dim(local, 0, halo, axis=ax)
     right_halo = jax.lax.ppermute(left_edge, axis_name, bwd)
-    return jnp.concatenate([fill(left_halo, False), local,
-                            fill(right_halo, True)], axis=ax)
+    return jnp.concatenate([left_halo, local, right_halo], axis=ax)
 
 
 def make_halo_nsteps(mesh: Mesh, params: LBMParams, n: int,
-                     donate: bool = True):
+                     donate: bool = True, noise_source: str = "threefry",
+                     noise_dist: str = "clt4"):
     """n standard steps with explicit halo exchange; returns jitted
-    SimState -> SimState (same trajectory as the jnp/GSPMD paths up to
-    f32 reordering)."""
+    SimState -> SimState (same trajectory as the jnp/GSPMD paths with the
+    same noise_source/noise_dist, up to f32 reordering)."""
     if n < 1:
         raise ValueError("n >= 1")
 
@@ -115,7 +92,9 @@ def make_halo_nsteps(mesh: Mesh, params: LBMParams, n: int,
         dtype = state.f.dtype
 
         # enter post-collide space (jnp, GSPMD-sharded automatically)
-        h, xi_f, xi_g, key = model.prelude(state, params)
+        h, xi_f, xi_g, key = model.prelude(state, params,
+                                           noise_source=noise_source,
+                                           noise_dist=noise_dist)
         f1, g1 = collide_ops.collide(state.f, state.g, h, xi_f, xi_g,
                                      params)
 
@@ -123,10 +102,10 @@ def make_halo_nsteps(mesh: Mesh, params: LBMParams, n: int,
             f, g, key, step = carry
             key, sub = jax.random.split(key)
             if params.noise_on:
-                normals = jax.random.normal(sub, (_N_NORMALS,) + shape,
-                                            dtype)
+                normals = noise_ops.normal_stack(sub, step, shape, dtype,
+                                                 noise_source, noise_dist)
             else:
-                normals = jnp.zeros((_N_NORMALS,) + shape, dtype)
+                normals = jnp.zeros((noise_ops.N_NORMALS,) + shape, dtype)
             f, g = local_step_sm(f, g, normals)
             return (f, g, key, step + 1), None
 

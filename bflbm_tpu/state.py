@@ -15,8 +15,9 @@ class SimState(NamedTuple):
     as mutable MultiFabs (main_run_job.cpp:205-212); everything derived is
     recomputed inside the step here, so the minimal state is just the two
     population sets plus RNG bookkeeping.  f, g have shape (19, X, Y, Z)
-    with the population axis leading so the spatial trailing axes map onto
-    TPU (sublane, lane) tiles.
+    with the population axis leading (structure of arrays), so each
+    population is a contiguous field and z is the unit-stride axis that
+    coalesced GPU loads run along.
     """
 
     f: jax.Array

@@ -1,4 +1,4 @@
-// bflbm_native: native runtime components for the TPU FLBM framework.
+// bflbm_native: host-side native runtime components of the FLBM framework.
 //
 // 1. Fast multi-field snapshot I/O (replaces the role of AMReX VisMF
 //    parallel plotfile I/O, AMReX_FileIO.H / WriteSingleLevelPlotfile):

@@ -89,42 +89,45 @@ def test_blocked_step_periodic_matches_jnp():
                                atol=1e-12)
 
 
-def test_exchange_halo_pad_to():
-    """pad_to ships only `halo` rows over the ppermute and zero-fills
-    the far (never-consumed Mosaic-alignment) rows of each slab: the
-    near rows must be bitwise those of a full-depth exchange, the far
-    rows exactly zero (parallel.kernel's y halo, 4x ICI cut)."""
+@pytest.mark.parametrize("dist", ["clt4", "u8"])
+def test_halo_step_matches_jnp_hash_noise(dist):
+    """The halo engine draws the coordinate-keyed stream like the jnp
+    engine: a (4, 1, 1) mesh matches one device with noise_source="hash"
+    (the multi-card comparison chip_smoke.py --four makes at 256^3)."""
+    params = LBMParams(alpha0=0.0, kBT=1e-5)
+    shape = (16, 8, 8)
+    state = model.init_mixture(shape, params, dtype=jnp.float32)
+    n = 4
+    ref = state
+    for _ in range(n):
+        ref, _ = model.step(ref, params, noise_source="hash",
+                            noise_dist=dist)
+    mesh = mesh_lib.make_mesh((4, 1, 1), devices=jax.devices()[:4])
+    run = halo_par.make_halo_nsteps(mesh, params, n, donate=False,
+                                    noise_source="hash", noise_dist=dist)
+    got = run(mesh_lib.shard_state(state, mesh))
+    assert int(got.step) == n
+    np.testing.assert_array_equal(np.asarray(got.key), np.asarray(ref.key))
+    np.testing.assert_allclose(np.asarray(got.f), np.asarray(ref.f),
+                               rtol=0, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(got.g), np.asarray(ref.g),
+                               rtol=0, atol=2e-5)
+
+
+def test_exchange_halo_ring():
+    """Each shard's appended slabs are its ring neighbours' edge rows:
+    the exchanged block equals a periodic slice of the global array."""
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    import jax as _jax
-    mesh = mesh_lib.make_mesh((1, 2, 1), devices=_jax.devices()[:2])
+    mesh = mesh_lib.make_mesh((1, 4, 1), devices=jax.devices()[:4])
     x = jnp.arange(2 * 4 * 16 * 8, dtype=jnp.float32).reshape(2, 4, 16, 8)
-
-    def run(pad):
-        def f(loc):
-            return halo_par.exchange_halo(loc, "y", 2, 2,
-                                          pad_to=8 if pad else None)
-        return shard_map(
-            f, mesh=mesh, in_specs=P(None, "x", "y", "z"),
-            out_specs=P(None, "x", "y", "z"))(x)
-
-    full = np.asarray(shard_map(
-        lambda loc: halo_par.exchange_halo(loc, "y", 2, 8),
+    got = np.asarray(shard_map(
+        lambda loc: halo_par.exchange_halo(loc, "y", 2, 2),
         mesh=mesh, in_specs=P(None, "x", "y", "z"),
         out_specs=P(None, "x", "y", "z"))(x))
-    got = np.asarray(run(True))
-    assert got.shape == full.shape
-    # per-shard local layout: [left slab 8][local 8][right slab 8]
-    for s in range(2):
-        lo, hi = s * 24, (s + 1) * 24
-        blk_f, blk_g = full[:, :, lo:hi], got[:, :, lo:hi]
-        # near rows of each slab (adjacent to the local block) match
-        np.testing.assert_array_equal(blk_g[:, :, 6:8], blk_f[:, :, 6:8])
-        np.testing.assert_array_equal(blk_g[:, :, 16:18],
-                                      blk_f[:, :, 16:18])
-        # local block untouched
-        np.testing.assert_array_equal(blk_g[:, :, 8:16], blk_f[:, :, 8:16])
-        # far alignment rows are exactly zero
-        assert not blk_g[:, :, 0:6].any()
-        assert not blk_g[:, :, 18:24].any()
+    xs = np.asarray(x)
+    for s in range(4):
+        blk = got[:, :, s * 8:(s + 1) * 8]
+        want = np.take(xs, np.arange(s * 4 - 2, s * 4 + 6) % 16, axis=2)
+        np.testing.assert_array_equal(blk, want)

@@ -78,15 +78,14 @@ def test_rest_equilibrium_is_weights():
 
 
 def test_eof_factored_schedules_match_matrices():
-    """The hand-factored "eof" transform schedules (fused kernel default)
-    must reproduce M / M_INV exactly on the identity basis and agree
-    with a dense f64 matrix apply on random data; the telescoped rest
+    """The hand-factored transform schedules (the GPU step kernel's) must
+    reproduce M / M_INV exactly on the identity basis and agree with a
+    dense f64 matrix apply on random data; the telescoped rest
     population must conserve mass to f64 roundoff.  Guards the
     import-time _verify_eof gate with visible coverage."""
-    from bflbm_tpu.kernels.fused_step import (_EOF_OK, _eof_mom,
-                                              _eof_pops)
+    from bflbm_tpu.ops.moments import _eof_mom, _eof_pops, _verify_eof
 
-    assert _EOF_OK
+    assert _verify_eof()
     rng = np.random.default_rng(3)
     pops = [rng.standard_normal(64) for _ in range(lattice.Q)]
     m_fact = np.stack(_eof_mom(pops))

@@ -159,7 +159,7 @@ def test_run_noise_source_hash():
     """RunConfig.noise_source='hash' routes the jnp engine onto the
     coordinate-keyed stream (RANDRAW draw_from_pdf_normal analog): the
     run completes, equals the manual model.step(noise_source='hash')
-    trajectory, and non-jnp engines reject the option loudly."""
+    trajectory, and the kernel engine rejects the option loudly."""
     import tempfile
 
     from bflbm_tpu import run as run_mod

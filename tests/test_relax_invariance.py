@@ -1,34 +1,29 @@
 """Exact-relaxation (tau = 1/2) specialization: algebraically exact,
-NOT bitwise (VERDICT r4 weak #1).
+NOT bitwise.
 
 Every reference recipe runs tau_bar = 1 (LBM_binary.H:74-80), where the
 MRT update m + (m_eq - m)/tau_bar + Phi + xi reduces to m_eq + Phi + xi;
-round 4c specialized both engines to skip the discarded work.  The
+the engines specialize that case to skip the discarded work.  The
 specialization is algebraically exact (f64 diff ~1e-14 here), but in f32
-``fl(m + fl(m_eq - m)) != m_eq`` in general — the specialized and
+``fl(m + fl(m_eq - m)) != m_eq`` in general - the specialized and
 general paths produce trajectories that differ at round-off (~1e-7
 after one step) on any NON-UNIFORM state, and a round-off-perturbed
-chaotic trajectory decorrelates.  Consequence pinned here: NO long-run
+chaotic trajectory decorrelates.  Consequence pinned here: no long-run
 fluctuation statistic of the specialized engine can be byte-identical
-to a pre-specialization run — the committed-then-retracted
-``bkernel_u8_relax.json`` (all 11 S(k) ratios byte-equal to the
-pre-relax artifact) could not have come from a genuine re-run, and the
-round-5 re-validation (acceptance_r5/) uses an independent seed so its
-sampling-level differences are visible.
+to a run of the general formulas, so a re-validation after such a
+change uses an independent seed to make its sampling-level differences
+visible.
 
-The hooks ``fused_step.FORCE_GENERAL_RELAX`` /
-``ops.collide.FORCE_GENERAL_RELAX`` route tau = 1/2 through the general
-formulas for these A/Bs.
+The hook ``ops.collide.FORCE_GENERAL_RELAX`` routes tau = 1/2 through
+the general formulas for these A/Bs.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from bflbm_tpu.config import LBMParams
-from bflbm_tpu.kernels import fused_step
 from bflbm_tpu.models import binary_fluid as model
 from bflbm_tpu.ops import collide as collide_ops
 
@@ -36,7 +31,6 @@ from bflbm_tpu.ops import collide as collide_ops
 @pytest.fixture
 def force_general():
     def setter(on):
-        fused_step.FORCE_GENERAL_RELAX = on
         collide_ops.FORCE_GENERAL_RELAX = on
 
     yield setter
@@ -73,46 +67,3 @@ def test_jnp_collide_exact_vs_general(force_general, dtype):
     else:
         assert d < 1e-5, d            # round-off, not a physics change
         assert d > 0.0                # ... but NOT bitwise
-
-
-def _kernel_kstep(state, params, noise_dist):
-    fn = fused_step.make_ksteps(params, tuple(state.f.shape[1:]), 4,
-                                tile=(8, 8), block=1, transform="eof",
-                                noise_impl="hash", noise_dist=noise_dist)
-    with pltpu.force_tpu_interpret_mode():
-        out = fn(jax.tree.map(jnp.array, state))
-    return np.asarray(out.f), np.asarray(out.g)
-
-
-@pytest.mark.parametrize("label,params,dist", [
-    ("fluct_u8", LBMParams(alpha0=0.0, kBT=1e-5), "u8"),
-    ("coupled_determ", LBMParams(alpha0=1.2, kBT=0.0, kappa=0.1,
-                                 rho_lo=0.1, rho_hi=3.0), "clt4"),
-])
-def test_kernel_exact_vs_general_roundoff(force_general, label, params,
-                                          dist):
-    """Kernel path: a few K-steps from a non-uniform state under the
-    specialized vs general relaxation — close (atol 1e-5) but NOT
-    bitwise.  This is the measurement that retracts the r4c
-    'bit-for-bit reproducible at display precision' claim."""
-    shape = (8, 8, 128)
-    if params.alpha0:
-        state = model.init_droplet(shape, params, dtype=jnp.float32,
-                                   radius=0.3)
-    else:
-        state = model.init_mixture(shape, params, dtype=jnp.float32)
-        # mixture init is uniform -> m == m_eq exactly and the A/B would
-        # be trivially bitwise; perturb it
-        bump = 1e-3 * jnp.sin(
-            jnp.arange(shape[2], dtype=jnp.float32) * 0.37)
-        state = state._replace(f=state.f * (1.0 + bump))
-
-    force_general(False)
-    fe, ge = _kernel_kstep(state, params, dist)
-    force_general(True)
-    fg, gg = _kernel_kstep(state, params, dist)
-
-    d = max(np.abs(fe - fg).max(), np.abs(ge - gg).max())
-    assert d < 1e-5, (label, d)
-    n_neq = int((fe != fg).sum()) + int((ge != gg).sum())
-    assert n_neq > 0, label
